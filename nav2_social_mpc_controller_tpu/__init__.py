@@ -1,8 +1,8 @@
-"""TPU-native social-MPC trajectory optimization framework.
+"""Batched social-MPC trajectory optimization framework for accelerators.
 
 A from-scratch re-design of the capabilities of the ROS 2 Nav2 plugin
 ``nav2_social_mpc_controller`` (reference: PIC4SeR/nav2_social_mpc_controller)
-for TPU hardware: the per-tick Ceres Levenberg-Marquardt solve becomes a
+for batched accelerator execution: the per-tick Ceres Levenberg-Marquardt solve becomes a
 batched, jitted Gauss-Newton/LM loop in JAX, the horizon rollout is a single
 ``lax.scan`` shared by all critics, the Social Force Model is a vmapped
 pairwise kernel, and thousands of independent scenario solves batch per chip

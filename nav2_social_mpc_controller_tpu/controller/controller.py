@@ -264,8 +264,8 @@ def make_step(cfg: SocialMPCConfig):
 def make_step_batch(cfg: SocialMPCConfig, validate: bool = True):
     """Jitted batched step: scenario/carry pytrees with a leading batch axis.
 
-    This is the TPU workhorse — the reference solves ONE problem per 50 ms
-    tick on CPU; here a whole scenario batch solves per dispatch
+    This is the accelerator workhorse — the reference solves ONE problem per
+    50 ms tick on CPU; here a whole scenario batch solves per dispatch
     (SURVEY.md 'the single number that shapes everything').
 
     The returned callable checks the windowing-exactness bounds
@@ -388,14 +388,12 @@ class SocialMPCController:
             # fallback cannot fire, so a misconfigured window must fail HERE
             # rather than silently corrupt results.
             from nav2_social_mpc_controller_tpu.core.validate import (
-                check_costmap_bf16_exact,
                 validate_scenario_windows,
             )
 
             validate_scenario_windows(
                 self.cfg, scenario.costmap.resolution, scenario.esdf.resolution
             )
-            check_costmap_bf16_exact(scenario.costmap.data)
             self._windows_validated = True
         if self._plan is not None:
             scenario = scenario._replace(path=self._plan)

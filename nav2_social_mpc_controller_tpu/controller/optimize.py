@@ -4,7 +4,7 @@ command/path extraction.
 
 Reference parity target: Optimizer::optimize (optimizer.cpp:148-452) and its
 helpers format_to_optimize (:484-551) and the post-solve extraction
-(:390-446). Structure inverted for TPU (SURVEY.md section 7): instead of a
+(:390-446). Structure inverted for batching (SURVEY.md section 7): instead of a
 Ceres problem object holding ~8 residual blocks x H steps that each
 re-integrate the rollout, we build ONE residual vector function u -> r(u)
 whose evaluation shares a single lax.scan rollout; jacfwd gives the (R, 2B)
@@ -163,8 +163,8 @@ def build_residual_fn(
         resolution=jnp.asarray(costmap.resolution),
     )
     # Rolling-window crop around pose_0 (once per tick, outside the LM loop)
-    # so the per-iteration obstacle stencil matmuls read a small VMEM-sized
-    # window; exact-output sizing rule in OptimizerConfig.obstacle_window_cells.
+    # so the per-iteration obstacle stencil matmuls read a small window;
+    # exact-output sizing rule in OptimizerConfig.obstacle_window_cells.
     # When the resolution is concrete (host-side/f64 callers), a window below
     # the exactness bound falls back to the full grid with a warning; traced
     # callers are guarded at the host boundary (core/validate.py).
@@ -300,10 +300,10 @@ def solve_prepared(cfg: SocialMPCConfig, prep: "PreparedProblem"):
         prep.costmap,
     )
 
-    # Fused LM iteration (ops/fused_iter.py): analytic residual+Jacobian ->
-    # (cost, g, JtJ) with a Pallas kernel on the batched f32 TPU path; the
-    # custom_vmap op keeps THIS path (linearize over residual_fn) for
-    # single-lane / CPU / f64 execution, so parity suites pin both.
+    # Analytic LM value-and-gradient (ops/fused_iter.py): residual+Jacobian
+    # -> (cost, g, JtJ) on the batched f32 path; the custom_vmap op keeps
+    # THIS path (linearize over residual_fn) for single-lane / f64
+    # execution, so parity suites pin both.
     value_grad_fn = None
     if fused_iter.can_fuse(cfg):
         value_grad_fn = fused_iter.build_value_grad(

@@ -37,7 +37,7 @@ def _lookahead_point(px, py, valid, rx, ry, lookahead_dist):
     """Reference backward scan (path_trajectorizer.cpp:160-175): largest valid
     index with dist <= lookahead_dist; if none, the largest valid index among
     distance minimizers. Returns the waypoint COORDS via a one-hot reduction
-    (a per-step gather from the path array lowers near-scalar on TPU)."""
+    (instead of a per-step gather from the path array)."""
     p = px.shape[0]
     idx = jnp.arange(p)
     dist = jnp.hypot(rx - px, ry - py)

@@ -1,4 +1,4 @@
-"""Core pytree types for the TPU social-MPC framework.
+"""Core pytree types for the batched social-MPC framework.
 
 Reference mapping (see SURVEY.md section 2):
   AgentsState             <- AgentStatus / AgentsStates (tools/type_definitions.hpp:6-9)

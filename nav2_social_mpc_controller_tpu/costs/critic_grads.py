@@ -12,8 +12,8 @@ ops/dual4.py).
 
 Layout-agnostic by construction: plain elementwise jnp over arrays of any
 matching shape, agents as a Python list of per-agent field tuples — the
-SAME functions run per-lane (S,) in the parity tests, batched in XLA, and
-on (S, 128) tiles inside the Pallas kernel.
+SAME functions run per-lane (S,) in the parity tests and batched (S, B)
+in XLA.
 
 Each function returns (r, (gx, gy, gth, gv, gw)) with None for identically
 zero partials. Reference math citations are in costs/critics.py; the
@@ -54,18 +54,18 @@ def velocity_grad(weight, desired, v, in_horizon):
     return r, (None, None, None, gv, None)
 
 
-def goal_align_grad(weight, goal_yaw, yaw, wrap_fn=wrap_atan2):
+def goal_align_grad(weight, goal_yaw, yaw):
     """w * wrap(goal_yaw - yaw)^2 (critics.goal_align_cost); wrap' = 1."""
-    t = wrap_fn(goal_yaw - yaw)
+    t = wrap_atan2(goal_yaw - yaw)
     return weight * t * t, (None, None, -2.0 * weight * t, None, None)
 
 
-def agent_angle_grad(weight, yaw, steer, active, wrap_fn=wrap_atan2):
+def agent_angle_grad(weight, yaw, steer, active):
     """Social-norm steering with the agent-selection branch PRECOMPUTED:
     steer/active depend only on projected agents and pose_0 — both
     u-independent — so the per-iteration work collapses to
     active * w * wrap(yaw - steer)^2 (critics.agent_angle_cost)."""
-    ang = wrap_fn(yaw - steer)
+    ang = wrap_atan2(yaw - steer)
     r = jnp.where(active, weight * ang * ang, 0.0)
     gth = jnp.where(active, 2.0 * weight * ang, 0.0)
     return r, (None, None, gth, None, None)
@@ -104,9 +104,9 @@ def proxemics_grad(weight, px, py, agents):
 
 def obstacle_grad(weight, val, drow, dcol, yaw, inv_res, front_offset):
     """w * bicubic(costmap)(front point), with the bicubic value and its
-    row/col derivatives ALREADY computed (the lane-packed Pallas kernel
-    owns that part). front = p + off*(cos yaw, sin yaw); row = (fy-oy)/res,
-    col = (fx-ox)/res, so the chain to (x, y, yaw) is elementwise."""
+    row/col derivatives ALREADY computed (world/grid.bicubic_linearize).
+    front = p + off*(cos yaw, sin yaw); row = (fy-oy)/res, col = (fx-ox)/res,
+    so the chain to (x, y, yaw) is elementwise."""
     r = weight * val
     gx = weight * dcol * inv_res
     gy = weight * drow * inv_res
@@ -117,12 +117,15 @@ def obstacle_grad(weight, val, drow, dcol, yaw, inv_res, front_offset):
     return r, (gx, gy, gth, None, None)
 
 
-def _social_pair_force(mx, my, mvx, mvy, ox, oy, ovx, ovy,
-                       atan2_fn=jnp.arctan2, wrap_fn=wrap_atan2):
+def _social_pair_parts(mx, my, mvx, mvy, ox, oy, ovx, ovy):
     """Dual transcription of SocialWorkCost::computeSocialForce for ONE
     (me <- other) pair (social_work_cost_function.hpp:164-228, mirrored
-    from costs.critics._critic_social_force). All 8 args are dual4 values;
-    returns (fx, fy) duals."""
+    from costs.critics._critic_social_force). All 8 args are dual4 values.
+
+    Returns (idx, idy, fvel, fang, unit): the force is
+    SW_FORCE_FACTOR_SOCIAL * (fvel * idir + fang * leftnormal(idir)), and
+    idir is a unit vector wherever `unit` holds (the 1e-30 floor did not
+    engage)."""
     dx = d4.sub(mx, ox)
     dy = d4.sub(my, oy)
     dnorm = d4.sqrt_(d4.add(d4.mul(dx, dx), d4.mul(dy, dy)))
@@ -140,16 +143,17 @@ def _social_pair_force(mx, my, mvx, mvy, ox, oy, ovx, ovy,
     ilen = d4.sqrt_(d4.add(d4.mul(ix, ix), d4.mul(iy, iy)))
     # maximum(ilen, 1e-30): tangent follows the larger branch, as autodiff.
     floor = d4.const(jnp.full_like(ilen[0], 1e-30))
-    ilen = d4.where(ilen[0] > 1e-30, ilen, floor)
+    unit = ilen[0] > 1e-30
+    ilen = d4.where(unit, ilen, floor)
     idx = d4.div(ix, ilen)
     idy = d4.div(iy, ilen)
 
     # theta = wrap(atan2(dd) - atan2(id)); wrap' = 1.
     theta_raw = d4.sub(
-        d4.atan2(ddy, ddx, primal_fn=atan2_fn),
-        d4.atan2(idy, idx, primal_fn=atan2_fn),
+        d4.atan2(ddy, ddx),
+        d4.atan2(idy, idx),
     )
-    theta = (wrap_fn(theta_raw[0]), theta_raw[1])
+    theta = (wrap_atan2(theta_raw[0]), theta_raw[1])
 
     b = d4.scale(ilen, SW_GAMMA)
     d_over_b = d4.div(dnorm, b)
@@ -160,7 +164,12 @@ def _social_pair_force(mx, my, mvx, mvy, ox, oy, ovx, ovy,
     e_ang = d4.exp(d4.neg(d4.add(d_over_b, d4.mul(d4.scale(bt, SW_N), d4.scale(bt, SW_N)))))
     fang = d4.scale(e_ang, -1.0)
     fang = (fang[0] * sign, tuple(None if t is None else t * sign for t in fang[1]))
+    return idx, idy, fvel, fang, unit
 
+
+def _social_pair_force(mx, my, mvx, mvy, ox, oy, ovx, ovy):
+    """(fx, fy) duals of the pair force (see _social_pair_parts)."""
+    idx, idy, fvel, fang, _unit = _social_pair_parts(mx, my, mvx, mvy, ox, oy, ovx, ovy)
     lnx = d4.neg(idy)
     lny = idx
     fx = d4.scale(d4.add(d4.mul(fvel, idx), d4.mul(fang, lnx)), SW_FORCE_FACTOR_SOCIAL)
@@ -168,8 +177,23 @@ def _social_pair_force(mx, my, mvx, mvy, ox, oy, ovx, ovy,
     return fx, fy
 
 
-def social_work_grad(weight, px, py, yaw, v, agents,
-                     atan2_fn=jnp.arctan2, wrap_fn=wrap_atan2):
+def _social_pair_force_sq(mx, my, mvx, mvy, ox, oy, ovx, ovy):
+    """fx^2 + fy^2 of one pair force, as a dual.
+
+    idir and its left normal are orthonormal, so the squared force is
+    factor^2 * (fvel^2 + fang^2) * |idir|^2 with |idir|^2 = 1 off the
+    1e-30 floor. Forming it from (fx, fy) instead would carry the rotation
+    of idir in both components: near contact that rotation is ~1/distance,
+    and the two terms 2 f.df cancel it to a small remainder, losing
+    ~5 digits of the f32 gradient (PERF.md)."""
+    idx, idy, fvel, fang, unit = _social_pair_parts(mx, my, mvx, mvy, ox, oy, ovx, ovy)
+    mag = d4.scale(d4.add(d4.mul(fvel, fvel), d4.mul(fang, fang)),
+                   SW_FORCE_FACTOR_SOCIAL * SW_FORCE_FACTOR_SOCIAL)
+    idir_sq = d4.add(d4.mul(idx, idx), d4.mul(idy, idy))
+    return d4.where(unit, mag, d4.mul(mag, idir_sq))
+
+
+def social_work_grad(weight, px, py, yaw, v, agents):
     """w * (||SF(robot <- agents)||^2 + sum_j ||SF(agent_j <- robot)||^2
     + 1e-6)  (critics.social_work_cost), with its per-step gradient w.r.t.
     (x, y, yaw, v) from a 4-tangent dual forward pass. w (angular) never
@@ -190,10 +214,7 @@ def social_work_grad(weight, px, py, yaw, v, agents,
     for ax, ay, ayaw, alv, avalid in agents:
         avx = d4.const(alv * jnp.cos(ayaw))
         avy = d4.const(alv * jnp.sin(ayaw))
-        fx, fy = _social_pair_force(
-            dpx, dpy, rvx, rvy, d4.const(ax), d4.const(ay), avx, avy,
-            atan2_fn=atan2_fn, wrap_fn=wrap_fn,
-        )
+        fx, fy = _social_pair_force(dpx, dpy, rvx, rvy, d4.const(ax), d4.const(ay), avx, avy)
         zd = d4.const(zero)
         sfx = d4.add(sfx, d4.where(avalid, fx, zd))
         sfy = d4.add(sfy, d4.where(avalid, fy, zd))
@@ -206,9 +227,7 @@ def social_work_grad(weight, px, py, yaw, v, agents,
         amy = d4.const(ay)
         amvx = d4.const(alv * jnp.cos(ayaw))
         amvy = d4.const(alv * jnp.sin(ayaw))
-        fx, fy = _social_pair_force(amx, amy, amvx, amvy, dpx, dpy, rvx, rvy,
-                                    atan2_fn=atan2_fn, wrap_fn=wrap_fn)
-        wp = d4.add(wp, d4.add(d4.mul(fx, fx), d4.mul(fy, fy)))
+        wp = d4.add(wp, _social_pair_force_sq(amx, amy, amvx, amvy, dpx, dpy, rvx, rvy))
 
     total = d4.scale(d4.add(d4.add(wr, wp), d4.const(jnp.full_like(px, 1e-6))), weight)
     gx, gy, gth, gv = d4.tangents(total)

@@ -247,9 +247,8 @@ def _agent_angle_impl(weight, new_yaw, robot_init_pose, agents):
     closest_sq = jnp.min(masked, axis=-1)  # == masked[s, ci] without a gather
     has_agent = jnp.isfinite(closest_sq) & (closest_sq <= AGENT_ANGLE_SAFE_DIST_SQ)
 
-    # agents[s, ci] as a one-hot reduction: batched fancy-indexing lowers to
-    # a per-row gather on TPU (measured ~8% of the LM iteration through the
-    # jacfwd passes); the masked sum over N<=6 slots is a few VPU ops.
+    # agents[s, ci] as a one-hot reduction instead of a batched per-row
+    # gather; the masked sum over N<=6 slots is a few elementwise ops.
     onehot = ci[:, None] == jnp.arange(agents.shape[-2])
     ag = jnp.sum(jnp.where(onehot[..., None], agents, 0.0), axis=-2)  # (S, 6)
     agent_angle_initial = jnp.arctan2(ag[:, 1] - y0, ag[:, 0] - x0)

@@ -47,14 +47,12 @@ def block_index_sequence_dynamic(n_steps: int, control_horizon, block_length):
 def expand_blocks(u: jnp.ndarray, block_idx) -> jnp.ndarray:
     """Per-step controls u[block_idx] as a one-hot product: (S, B) x (B, 2).
 
-    A batched gather from the tiny (B, 2) decision buffer lowers near-scalar
-    on TPU and sits inside every LM residual evaluation. Broadcast-multiply-
-    reduce (NOT a matmul): at DEFAULT precision a TPU matmul truncates its
-    f32 operands to bf16, which QUANTIZED every expanded control — the round-4
-    on-chip parity study caught published commands at exactly bf16(u), e.g.
-    v = 0.6015625 > the 0.6 bound. The where/sum form is an exact copy and
-    fuses into vector ops; at B <= 7 it is also cheaper than a 6-pass
-    HIGHEST-precision dot."""
+    It sits inside every LM residual evaluation. Broadcast-multiply-reduce
+    (NOT a matmul): a DEFAULT-precision matmul may round its f32 operands
+    (TF32 on the GPU), which would QUANTIZE every expanded control — a
+    published command could then exceed its bound (e.g. v = 0.6015625 >
+    0.6). The where/sum form is an exact copy and fuses into elementwise
+    ops."""
     onehot = jnp.asarray(block_idx)[:, None] == jnp.arange(u.shape[0])
     return jnp.sum(jnp.where(onehot[..., None], u[None, :, :], 0.0), axis=1)
 
@@ -76,8 +74,8 @@ def rollout_poses(pose0: jnp.ndarray, u: jnp.ndarray, dt: float, block_idx: np.n
     # position step reads theta BEFORE its own update, so
     #   x_k = x_0 + dt * cumsum(v * cos(theta_{k-1}))   (same for y).
     # Three cumsums replace the sequential lax.scan the first formulation
-    # used — which lowered to a while loop costing ~11 us per LM iteration
-    # TWICE (primal + linearize tangent replay) at B=1024 on v5e. cumsum
+    # used — which lowered to a while loop run TWICE per LM iteration
+    # (primal + linearize tangent replay). cumsum
     # reassociates additions vs the sequential scan (~1e-7 relative in f32);
     # parity suites compare in f64 at >=1e-8 tolerances, unaffected.
     th0 = pose0[2]

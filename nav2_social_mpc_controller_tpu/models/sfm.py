@@ -242,7 +242,7 @@ def sfm_update(pos, vel, yaw, global_force, desired_speed, goal, has_goal, goal_
     return pos, vel, new_yaw, lv, av, has_goal & ~reached
 
 
-def _project_people_impl(
+def project_people(
     init_people,  # (N, 6) AgentsState rows [x, y, yaw, t, lv, av]
     robot_traj,  # (S+1, 6) robot reference rows (format_to_optimize output)
     robot_traj_n,  # () int32: valid rows in robot_traj
@@ -402,134 +402,3 @@ def _project_people_impl(
     steps = jnp.arange(s_plus_1 - 1, dtype=jnp.int32)
     _, traj = jax.lax.scan(step, carry0, (robot_traj[:-1], steps), unroll=4)
     return jnp.concatenate([init_people[None, :, :], traj], axis=0)
-
-
-# ---------------------------------------------------------------------------
-# Batched TPU dispatch: the projection scan as one Pallas kernel.
-# ---------------------------------------------------------------------------
-
-import functools as _functools
-import os as _os
-
-
-@_functools.lru_cache(maxsize=64)
-def _project_people_op(maxtime, dt, params, people_desired_vel, people_radius,
-                       robot_desired_vel, robot_radius, goal_radius, esdf_window):
-    """custom_vmap op over the 8 array operands, statics closed over.
-
-    Unbatched execution is EXACTLY _project_people_impl (the scan every
-    parity suite pins). Batched f32 TPU execution with the windowed
-    obstacle lookup enabled runs the fused scan kernel
-    (models/sfm_pallas.py); everything else takes vmap of the scan —
-    identical to the pre-round-5 behavior. SOCIAL_MPC_DISABLE_SFM_KERNEL=1
-    is the operational escape hatch."""
-    kw = dict(
-        maxtime=maxtime, dt=dt, params=params,
-        people_desired_vel=people_desired_vel, people_radius=people_radius,
-        robot_desired_vel=robot_desired_vel, robot_radius=robot_radius,
-        goal_radius=goal_radius, esdf_window=esdf_window,
-    )
-
-    @jax.custom_batching.custom_vmap
-    def op(init_people, robot_traj, robot_traj_n, esdf_distances, esdf_indexes,
-           esdf_origin, esdf_resolution, esdf_valid):
-        return _project_people_impl(
-            init_people, robot_traj, robot_traj_n, esdf_distances, esdf_indexes,
-            esdf_origin, esdf_resolution, esdf_valid, **kw,
-        )
-
-    @op.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [
-            a if bt else jnp.broadcast_to(jnp.asarray(a), (axis_size,) + jnp.shape(a))
-            for a, bt in zip(args, in_batched)
-        ]
-        (init_people, robot_traj, robot_traj_n, esdf_distances, esdf_indexes,
-         esdf_origin, esdf_resolution, esdf_valid) = args
-        grid_h, grid_w = esdf_distances.shape[-2], esdf_distances.shape[-1]
-        use_kernel = (
-            init_people.dtype == jnp.float32
-            and jax.default_backend() == "tpu"
-            and init_people.ndim == 3
-            and esdf_window > 0
-            and esdf_window <= min(grid_h, grid_w)
-            and grid_h <= 256
-            and grid_w <= 256
-            and grid_h * grid_w < 2**24
-            and _os.environ.get("SOCIAL_MPC_DISABLE_SFM_KERNEL") != "1"
-        )
-        if use_kernel:
-            from nav2_social_mpc_controller_tpu.models.sfm_pallas import (
-                project_people_pallas,
-            )
-
-            pos0 = init_people[:, :, 0:2]
-            oxy, start_col, start_row = jax.vmap(
-                lambda idx, p0, o, r: crop_esdf_obstacle_window(
-                    idx, p0, o, r, esdf_window
-                )
-            )(esdf_indexes, pos0, esdf_origin, esdf_resolution)
-            out = project_people_pallas(
-                init_people, robot_traj, robot_traj_n, oxy, start_col, start_row,
-                esdf_origin, esdf_resolution, esdf_valid,
-                (grid_h, grid_w), esdf_window, maxtime, dt, params,
-                people_desired_vel, people_radius, goal_radius,
-            )
-            return out, True
-        return (
-            jax.vmap(
-                lambda *a: _project_people_impl(*a, **kw)
-            )(*args),
-            True,
-        )
-
-    return op
-
-
-def project_people(
-    init_people,
-    robot_traj,
-    robot_traj_n,
-    esdf_distances,
-    esdf_indexes,
-    esdf_origin,
-    esdf_resolution,
-    esdf_valid,
-    maxtime: float,
-    dt: float,
-    params: SFMParams = DEFAULT_PARAMS,
-    people_desired_vel: float = 0.5,
-    people_radius: float = 0.5,
-    robot_desired_vel: float = 0.6,
-    robot_radius: float = 0.5,
-    goal_radius: float = 0.25,
-    esdf_window: int = 0,
-):
-    """Public entry — see _project_people_impl for the semantics and
-    reference citations. Dispatches through a custom_vmap op so the batched
-    f32 TPU path can run the whole projection scan as one Pallas kernel
-    (models/sfm_pallas.py) while every other execution mode keeps the
-    reference lax.scan unchanged.
-
-    The opportunistic window-exactness check must run HERE, where a
-    host-side caller's resolution is still concrete — inside the custom_vmap
-    trace it is abstract and the warn-and-fall-back contract
-    (_esdf_window_exact) could never fire."""
-    if esdf_window > 0 and not _esdf_window_exact(
-        esdf_window, esdf_resolution, people_desired_vel, dt, robot_traj.shape[-2]
-    ):
-        return _project_people_impl(
-            init_people, robot_traj, robot_traj_n, esdf_distances, esdf_indexes,
-            esdf_origin, esdf_resolution, esdf_valid, maxtime, dt, params,
-            people_desired_vel, people_radius, robot_desired_vel, robot_radius,
-            goal_radius, esdf_window=0,
-        )
-    op = _project_people_op(
-        float(maxtime), float(dt), params, float(people_desired_vel),
-        float(people_radius), float(robot_desired_vel), float(robot_radius),
-        float(goal_radius), int(esdf_window),
-    )
-    return op(
-        init_people, robot_traj, robot_traj_n, esdf_distances, esdf_indexes,
-        esdf_origin, esdf_resolution, jnp.asarray(esdf_valid),
-    )

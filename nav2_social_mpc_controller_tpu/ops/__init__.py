@@ -1,32 +1,20 @@
-"""The low-level TPU op library: the reusable kernels under the framework,
-collected behind one import point.
-
-Design rule shared by every op here (learned from v5e traces of the full
-controller step): **no data-dependent gathers on the hot path**. TPU gathers
-lower near-scalar (~16 ns/element); the ops below express the same math as
-one-hot contractions that run on the MXU/VPU at memory-bandwidth speed, or
-as Pallas kernels with the batch laid along the 128-wide lane axis.
+"""The low-level op library: the reusable array primitives under the
+framework, collected behind one import point.
 
   bicubic_interpolate   Catmull-Rom grid sampling as stencil matmuls with an
                         analytic custom JVP (world/grid.py)
-  bicubic_linearize     fused (value, d/drow, d/dcol) sampling; on TPU a
-                        Pallas kernel builds the stencils in VMEM and runs
-                        one MXU dot per scenario (ops/bicubic_pallas.py)
+  bicubic_linearize     (value, d/drow, d/dcol) sampling (world/grid.py)
   crop_grid_window      rolling-window grid crop, exact under a reachable-set
                         bound (world/grid.py)
   expand_blocks         block-constant control expansion as a one-hot product
                         (models/motion.py)
-  spd_solve             lane-batched tiny-SPD Cholesky solve, Pallas on TPU
-                        with an XLA fallback (solver/pallas_solve.py)
+  default_linear_solve  batched tiny-SPD Cholesky solve (solver/lm.py)
   esdf_nearest_obstacle_diff
                         ESDF nearest-obstacle lookup (world/grid.py)
 """
 
 from nav2_social_mpc_controller_tpu.models.motion import expand_blocks  # noqa: F401
-from nav2_social_mpc_controller_tpu.solver.pallas_solve import (  # noqa: F401
-    batched_spd_solve_pallas,
-    spd_solve,
-)
+from nav2_social_mpc_controller_tpu.solver.lm import default_linear_solve  # noqa: F401
 from nav2_social_mpc_controller_tpu.world.grid import (  # noqa: F401
     bicubic_interpolate,
     bicubic_interpolate_gather,

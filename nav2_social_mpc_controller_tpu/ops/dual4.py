@@ -1,6 +1,6 @@
 """Minimal forward-mode dual numbers with a fixed 4-wide tangent basis.
 
-Purpose-built for the fused LM-iteration kernel (ops/fused_iter.py): every
+Purpose-built for the analytic LM value-and-gradient (ops/fused_iter.py): every
 critic residual is DIAGONAL in the rollout step axis, so its Jacobian
 contribution reduces to per-step partials w.r.t. the 4 step inputs the
 social-work critic actually consumes — (x, y, yaw, v) — which are then
@@ -14,8 +14,7 @@ Representation: ``(p, (t0, t1, t2, t3))`` — a primal array plus 4 tangent
 arrays of the same shape; a tangent entry may be ``None`` (symbolic zero),
 so seeding with one-hots keeps early ops sparse. Everything is plain jnp
 elementwise math over arbitrary shapes: the SAME code runs per-lane (S,)
-under the test suite, batched (B, S) in XLA, and on (S, 128) tiles inside
-a Pallas kernel.
+under the test suite and batched (S, B) in XLA.
 """
 
 import jax.numpy as jnp
@@ -103,18 +102,12 @@ def sin(a):
     return (jnp.sin(a[0]), _map1(a[1], lambda x: c * x))
 
 
-def atan2(y, x, primal_fn=jnp.arctan2):
-    """d atan2(y, x) = (x dy - y dx) / (x^2 + y^2).
-
-    primal_fn computes the primal only — the tangent rule is always this
-    exact algebraic form (identical to JAX's atan2 JVP), so swapping in the
-    Mosaic polynomial atan2 (ops/fused_iter._atan2_poly — Pallas TPU has no
-    atan lowering) changes the primal by ~1 ulp and the tangents not at all.
-    """
+def atan2(y, x):
+    """d atan2(y, x) = (x dy - y dx) / (x^2 + y^2) (JAX's atan2 JVP)."""
     py, px = y[0], x[0]
     denom = px * px + py * py
     return (
-        primal_fn(py, px),
+        jnp.arctan2(py, px),
         _zip2(y[1], x[1], lambda ty: px / denom * ty, lambda tx: -py / denom * tx),
     )
 

@@ -1,15 +1,15 @@
-"""Multi-chip scale-out: mesh construction, scenario sharding, and the
+"""Multi-device scale-out: mesh construction, scenario sharding, and the
 distributed batched step.
 
 There is no reference equivalent — the reference is single-problem,
 single-thread CPU (SURVEY.md section 2.3); its "communication backend" is ROS
-DDS pub/sub. The TPU-native replacement (SURVEY.md section 5.8):
+DDS pub/sub. The batched replacement (SURVEY.md section 5.8):
 
   * a 1-D ``batch`` device mesh (optionally (host, batch) on multi-host
     slices), scenarios data-parallel across it;
   * ``shard_map`` over the batch axis — scenario solves are independent, so
     the only collectives are ``psum`` reductions of METRICS (solve counters,
-    mean iterations, status histograms) riding ICI;
+    mean iterations, status histograms) over the device interconnect;
   * host-side scenario feeding via ``jax.device_put`` with NamedSharding.
 
 Use ``jax.distributed.initialize()`` before building the mesh on multi-host

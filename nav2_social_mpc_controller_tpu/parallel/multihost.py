@@ -1,13 +1,13 @@
 """Multi-host scale-out: jax.distributed initialization, global meshes, and
 host-local scenario feeding.
 
-The TPU-native replacement for the reference's process/topic architecture at
+The accelerator replacement for the reference's process/topic architecture at
 fleet scale (SURVEY.md section 5.8): each host process generates/ingests its
 local scenario shard, arrays are assembled into jax.Arrays over a global
 (hosts x local-devices) batch mesh, the distributed step runs under
-shard_map with ICI/DCN collectives only for metric reductions.
+shard_map with collectives only for metric reductions.
 
-Tested without TPU hardware via the standard fake-cluster technique: N local
+Tested without accelerator hardware via the standard fake-cluster technique: N local
 processes, each with M virtual CPU devices, coordinated through
 jax.distributed (tests/test_multihost.py spawns 2x4).
 """
@@ -25,9 +25,10 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ):
-    """jax.distributed.initialize wrapper. On TPU pods with the standard
-    environment, call with no arguments (auto-detection); on a fake CPU
-    cluster pass coordinator/num/id explicitly."""
+    """jax.distributed.initialize wrapper. Where the cluster environment is
+    one JAX can read (e.g. SLURM), call with no arguments (auto-detection);
+    otherwise — a fake CPU cluster, or GPU hosts without such an
+    environment — pass coordinator/num/id explicitly."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

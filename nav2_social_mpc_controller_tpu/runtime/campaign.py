@@ -1,10 +1,10 @@
 """Multi-host scenario campaigns: the BASELINE config-5 entry point
 (100k+ concurrent scenarios, multi-tick with warm-start carry and
-checkpoint/resume) on a v5e-16-style multi-host slice — or a local
+checkpoint/resume) on a multi-host cluster — or a local
 fake cluster of N processes x M virtual CPU devices.
 
 The reference's fleet story is one robot per process tree (Nav2 controller
-server + DDS); the TPU-native equivalent is scenario data-parallelism over a
+server + DDS); the batched equivalent is scenario data-parallelism over a
 global (hosts x local-devices) batch mesh (SURVEY.md section 2.3/5.8):
 each host generates its local scenario shard, the distributed step runs under
 shard_map with psum'd FleetMetrics as the only cross-chip traffic, and the

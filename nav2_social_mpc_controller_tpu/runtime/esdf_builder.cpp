@@ -11,7 +11,7 @@
 // squared distance transform, O(H*W), run column-wise then row-wise, with the
 // argmin source cell propagated through both passes. This is the data-loading
 // layer of the framework (scenario generation at 10^4..10^5 grids/s), not the
-// TPU compute path.
+// device compute path.
 //
 // Build: g++ -O3 -shared -fPIC -o libesdf.so esdf_builder.cpp
 // (compiled on demand by runtime/esdf.py, ctypes-loaded).

@@ -5,7 +5,7 @@
 // obstacle_distance_interface.cpp) from Gazebo + an external
 // obstacle_distance_manager; this generator synthesizes the same world state
 // (plan, robot, pedestrians, costmap, ESDF) for 10^3..10^5 scenarios per
-// host call, feeding the TPU batch path. Mirrors the distributions of
+// host call, feeding the device batch path. Mirrors the distributions of
 // utils/scenarios.py (the readable NumPy single-scenario oracle); exact EDT
 // exact-EDT semantics inlined (esdf_builder.cpp is the general-grid path).
 //
@@ -135,8 +135,7 @@ void fill_one(uint64_t seed, int path_kind, int n_path_points,
     }
   }
   // Round to integer cost values (np.rint semantics: nearest, ties to even)
-  // -- nav2's Costmap2D stores unsigned char cost, and the bicubic kernel's
-  // split3 dot requires bf16-exact (integer) grids; mirrors make_costmap.
+  // -- nav2's Costmap2D stores unsigned char cost; mirrors make_costmap.
   for (size_t i = 0; i < (size_t)h * w; ++i) costmap[i] = std::nearbyintf(costmap[i]);
   // Obstacle CELLS for the ESDF: the blob centers (matching make_scenario's
   // obs_cells convention).

@@ -35,43 +35,66 @@ _load_failed = False
 _PATH_KINDS = {"sine": 0, "straight": 1, "arc": 2}
 
 
+def _build_and_load(force: bool):
+    """Compile the sources into _LIB (when forced or stale) and bind it."""
+    src_mtime = max(os.path.getmtime(s) for s in _SRCS)
+    if force or not os.path.exists(_LIB) or os.path.getmtime(_LIB) < src_mtime:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB, *_SRCS, "-lpthread"],
+            check=True,
+            capture_output=True,
+        )
+    lib = ctypes.CDLL(_LIB)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.generate_scenarios.argtypes = [
+        ctypes.c_uint64,  # base_seed
+        ctypes.c_int32,  # batch
+        ctypes.c_int32,  # n_threads
+        ctypes.c_int32,  # path_kind
+        ctypes.c_int32,  # n_path_points
+        ctypes.c_int32,  # max_path_points
+        ctypes.c_int32,  # n_agents
+        ctypes.c_int32,  # n_valid
+        ctypes.c_int32,  # h
+        ctypes.c_int32,  # w
+        ctypes.c_float,  # resolution
+        ctypes.c_float,  # origin_x
+        ctypes.c_float,  # origin_y
+        ctypes.c_int32,  # with_obstacles
+        f32p, f32p, i32p, f32p, f32p, f32p, f32p, f32p, i32p,
+    ]
+    lib.generate_scenarios.restype = None
+    return lib
+
+
 def _load():
     global _lib, _load_failed
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
         try:
-            src_mtime = max(os.path.getmtime(s) for s in _SRCS)
-            if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < src_mtime:
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB, *_SRCS, "-lpthread"],
-                    check=True,
-                    capture_output=True,
-                )
-            lib = ctypes.CDLL(_LIB)
-            f32p = ctypes.POINTER(ctypes.c_float)
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            lib.generate_scenarios.argtypes = [
-                ctypes.c_uint64,  # base_seed
-                ctypes.c_int32,  # batch
-                ctypes.c_int32,  # n_threads
-                ctypes.c_int32,  # path_kind
-                ctypes.c_int32,  # n_path_points
-                ctypes.c_int32,  # max_path_points
-                ctypes.c_int32,  # n_agents
-                ctypes.c_int32,  # n_valid
-                ctypes.c_int32,  # h
-                ctypes.c_int32,  # w
-                ctypes.c_float,  # resolution
-                ctypes.c_float,  # origin_x
-                ctypes.c_float,  # origin_y
-                ctypes.c_int32,  # with_obstacles
-                f32p, f32p, i32p, f32p, f32p, f32p, f32p, f32p, i32p,
-            ]
-            lib.generate_scenarios.restype = None
-            _lib = lib
+            _lib = _build_and_load(force=False)
         except (OSError, subprocess.CalledProcessError):
             _load_failed = True
+        return _lib
+
+
+def require_native():
+    """Build the generator from its committed sources on THIS machine and
+    load it, raising if the build fails — for the measurement paths
+    (bench.py, chip_smoke.py), which must not reuse a library built
+    elsewhere nor silently switch to the slower NumPy generator."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            try:
+                _lib = _build_and_load(force=True)
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(
+                    "building the native scenario generator failed:\n"
+                    + e.stderr.decode(errors="replace")
+                ) from e
         return _lib
 
 

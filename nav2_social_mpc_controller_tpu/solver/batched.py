@@ -3,8 +3,7 @@
 The plain batched solver is vmap(lm_solve): a batched while-loop that runs
 every lane until the SLOWEST lane converges, so a warm-started batch whose
 mean iteration count is ~13 still pays E[max] ~ 40 full-width iterations
-(the measured reason `previous_solution` warm starts bought only +2.6%
-end-to-end at B=1024 — docs/performance.md, warm-start economics).
+(iteration counts from the CPU warm-start study, tools/warm_start_study.py).
 
 Two-phase scheme, all in-graph:
 
@@ -28,16 +27,14 @@ framework's own batching economics.
 Round 5 makes the scheme MULTI-LEVEL (VERDICT r4 item 5): instead of one
 full-width phase gated on a single static capacity, the solver descends a
 geometric ladder of widths (B/2, B/4, ... down to the requested capacity),
-compacting at EVERY level whose trigger fires. This removes the measured
-capacity cliff: previously a capacity below the workload's cap-bound lane
-fraction meant the single trigger never fired and the solver degenerated
-to the plain path plus overhead (warm-start social B=1024: capacity 0.25
--> 172.7k solves/s but capacity 0.125 -> 64.9k, WORSE than no compaction
-— docs/performance.md). With the ladder, the B/2 level triggers as soon
+compacting at EVERY level whose trigger fires. This removes the capacity
+cliff: with a single level, a capacity below the workload's cap-bound lane
+fraction meant the trigger never fired and the solver degenerated to the
+plain path plus overhead. With the ladder, the B/2 level triggers as soon
 as half the batch is done regardless of where the final capacity sits, so
 every prefix of the ladder that can pay does pay, and the worst case is
 the plain solver plus O(log B) gather/scatters and a per-iteration
-popcount — bounded small, pinned by the driver-benched sweep.
+popcount.
 """
 
 from typing import NamedTuple
@@ -69,7 +66,7 @@ def lm_solve_batch_compacted(
 
     value_grad_op: per-lane op (u, *data_lane) -> (cost, g, jtj) — e.g.
     ops.fused_iter.make_value_grad_op (whose custom_vmap rule dispatches
-    the fused TPU kernel under this function's internal vmaps).
+    the analytic f32 path under this function's internal vmaps).
     data: tuple of arrays with leading batch axis B.
     u0/lower/upper: (B, D). capacity: static compacted width (< B).
 
@@ -105,21 +102,10 @@ def lm_solve_batch_compacted(
     st = jax.vmap(init_lane)(u0, *data)
     initial_cost = st.cost
 
-    # Same fused propose/commit ops as lm_solve's default path (the
-    # compacted solver already rejects jacobi_scaling and has no trace).
-    ops = None
-    if linear_solve is default_linear_solve:
-        from nav2_social_mpc_controller_tpu.solver.pallas_iter import (
-            make_commit_op,
-            make_propose_op,
-        )
-
-        ops = (make_propose_op(cfg), make_commit_op(cfg))
-
     def body_lane(st_l, lo_l, hi_l, *d_l):
         st2, _aux = lm_iteration(
             lambda u: value_grad_op(u, *d_l), lo_l, hi_l, cfg, linear_solve,
-            None, st_l, ops=ops,
+            None, st_l,
         )
         return st2
 

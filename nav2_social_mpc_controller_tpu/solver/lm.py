@@ -1,11 +1,11 @@
 """Batched Levenberg-Marquardt solver with Ceres trust-region semantics.
 
-TPU-native replacement for the per-tick ``ceres::Solve`` call
+Batched replacement for the per-tick ``ceres::Solve`` call
 (optimizer.cpp:381). One solve is a handful of 2B-variable (B = #parameter
-blocks, typically 3 -> 6 vars) damped normal-equation iterations; the TPU win
-is running 10^3..10^5 independent solves per chip under vmap, with the
-residual/Jacobian work batched onto the VPU/MXU and the tiny factorizations
-done as batched dense algebra.
+blocks, typically 3 -> 6 vars) damped normal-equation iterations; the
+accelerator win is running 10^3..10^5 independent solves per device under
+vmap, with the residual/Jacobian work and the tiny factorizations batched
+as dense array algebra.
 
 Semantics reproduced from Ceres (for cmd_vel parity within tolerance):
   * LM with diagonal damping: A = J^T J + (1/radius) * clamp(diag(J^T J)),
@@ -64,7 +64,7 @@ class LMConfig(NamedTuple):
     # With Marquardt damping D = diag(J^T J) this is an exact no-op whenever
     # the [min_diagonal, max_diagonal] clamp does not bind in either space
     # (S^{-1} clamp(S^2 diag) S^{-1} = diag) — measured at the benchmark
-    # magnitudes by tools/jacobi_scaling_study.py (see docs/performance.md),
+    # magnitudes by tools/jacobi_scaling_study.py (JACOBI_SCALING_r05.json),
     # which is why the production default stays False: same trajectories,
     # three fewer per-iteration ops in the while-loop body.
     jacobi_scaling: bool = False
@@ -102,23 +102,10 @@ class _LMState(NamedTuple):
     trace: LMTrace | None
 
 
-def _solve_damped(jtj, g, diag_clamped, radius, solve_fn):
-    a = jtj + jnp.diag(diag_clamped / radius)
-    return solve_fn(a, -g)
-
-
 def default_linear_solve(a, b):
-    """Dense SPD solve: Pallas lane-batched Cholesky on TPU, XLA elsewhere.
-
-    Inside the full controller step's LM loop the XLA Cholesky custom-call
-    costs ~2.5 ms per iteration at batch 4096 on v5e (traced: 25% of solve
-    time); the Pallas kernel (solver.pallas_solve.spd_solve) runs the same
-    factorization as unrolled lane-vector ops. spd_solve is a custom_vmap:
-    unbatched it is a plain cho_solve, so this default works for single
-    solves too."""
-    from nav2_social_mpc_controller_tpu.solver.pallas_solve import spd_solve
-
-    return spd_solve(a, b)
+    """Dense SPD solve of the damped normal equations (Cholesky). Under vmap
+    XLA batches the tiny D x D factorizations of every lane."""
+    return jax.scipy.linalg.cho_solve(jax.scipy.linalg.cho_factor(a), b)
 
 
 class _IterAux(NamedTuple):
@@ -131,74 +118,48 @@ class _IterAux(NamedTuple):
     active: jnp.ndarray
 
 
-def lm_iteration(value_grad, lower, upper, cfg: LMConfig, linear_solve,
-                 jac_scale, st: "_LMState", ops=None):
-    """ONE per-lane LM trust-region iteration — the exact body of lm_solve's
-    while-loop, factored out so the compacted batched solver
-    (solver/batched.py) can run the IDENTICAL per-lane math under an
-    explicit batch axis. A lane with st.done stays frozen (bit-identical
-    carry), which is what makes gather/compact/scatter safe.
+def propose(cfg: LMConfig, u, g, jtj, radius, lower, upper,
+            linear_solve=default_linear_solve, jac_scale=None):
+    """Trial step of one LM iteration: the damped normal-equation solve
+    A delta = -g with A = JtJ + clamp(diag(JtJ)) / radius, projected onto
+    the box; the projected delta defines both the candidate and the model
+    cost (constrained trust region).
 
-    Returns (new_state, _IterAux); new_state.trace passes through unchanged
-    (lm_solve layers the debug trace on top).
-
-    ops: optional (propose_op, commit_op) pair from solver/pallas_iter.py —
-    custom_vmap ops whose per-lane semantics are THIS function's math and
-    whose batched f32 TPU execution runs two lane-batched Pallas kernels
-    instead of ~45 small XLA fusions. Passed only on the non-debug default
-    path (lm_solve gates on trace/linear_solve/jacobi_scaling); the aux
-    tuple is zero-filled there since only the debug trace consumes it."""
-    if ops is not None and jac_scale is None:
-        propose_op, commit_op = ops
-        u_new, delta, model_change = propose_op(
-            st.u, st.g, st.jtj, st.radius, lower, upper
-        )
-        new_cost, g_new, jtj_new = value_grad(u_new)
-        (u, cost, g, jtj, radius, decrease, iters, done, term, failed) = commit_op(
-            st.u, st.cost, st.g, st.jtj, st.radius, st.decrease_factor, st.iters,
-            st.done, st.term, st.failed, u_new, delta, model_change, new_cost,
-            g_new, jtj_new,
-        )
-        st_new = _LMState(
-            u=u, cost=cost, g=g, jtj=jtj, radius=radius, decrease_factor=decrease,
-            iters=iters, done=done, term=term, failed=failed, trace=st.trace,
-        )
-        zero = jnp.zeros_like(st.cost)
-        return st_new, _IterAux(
-            rho=zero, actual_change=zero, step_norm=zero,
-            accept=st.done & False, active=~st.done,
-        )
-    g = st.g
-    jtj = st.jtj
-    dtype = st.u.dtype
-
-    grad_ok = jnp.max(jnp.abs(g)) <= cfg.gradient_tol
-
+    Returns (u_new, delta, model_change)."""
     if jac_scale is not None:
         # Solve the column-scaled damped system; map the step back.
         jtj_s = jtj * (jac_scale[:, None] * jac_scale[None, :])
         diag = jnp.clip(jnp.diagonal(jtj_s), cfg.min_diagonal, cfg.max_diagonal)
-        delta = jac_scale * _solve_damped(
-            jtj_s, jac_scale * g, diag, st.radius, linear_solve
+        delta = jac_scale * linear_solve(
+            jtj_s + jnp.diag(diag / radius), -(jac_scale * g)
         )
     else:
         diag = jnp.clip(jnp.diagonal(jtj), cfg.min_diagonal, cfg.max_diagonal)
-        delta = _solve_damped(jtj, g, diag, st.radius, linear_solve)
+        delta = linear_solve(jtj + jnp.diag(diag / radius), -g)
 
-    # Project trial point onto the box; the projected delta defines both
-    # the candidate and the model cost (constrained trust region).
-    u_new = jnp.clip(st.u + delta, lower, upper)
-    delta = u_new - st.u
+    u_new = jnp.clip(u + delta, lower, upper)
+    delta = u_new - u
 
     # Same raised precision as the normal-equation formation (value_grad):
-    # rho's numerator/denominator decide accept/reject, so a bf16-truncated
-    # model_change would still diverge from the CPU parity suites. These
-    # are (D,)-dot-(D,) contractions — cost is negligible at any precision.
+    # rho's numerator/denominator decide accept/reject, so a TF32-rounded
+    # model_change would diverge from the CPU parity suites. These are
+    # (D,)-dot-(D,) contractions — cost is negligible at any precision.
     hi = jax.lax.Precision.HIGHEST
     model_change = -jnp.vdot(delta, g, precision=hi) - 0.5 * jnp.vdot(
         delta, jnp.matmul(jtj, delta, precision=hi), precision=hi
     )
-    new_cost, g_new, jtj_new = value_grad(u_new)
+    return u_new, delta, model_change
+
+
+def commit(cfg: LMConfig, st: "_LMState", u_new, delta, model_change,
+           new_cost, g_new, jtj_new):
+    """Accept/reject the trial step, update the trust region and run the
+    convergence tests (Ceres semantics, see the module docstring). A lane
+    with st.done stays frozen (bit-identical carry).
+
+    Returns (new_state, _IterAux); new_state.trace passes through unchanged."""
+    dtype = st.u.dtype
+    grad_ok = jnp.max(jnp.abs(st.g)) <= cfg.gradient_tol
     actual_change = st.cost - new_cost
 
     rho = actual_change / model_change
@@ -271,44 +232,39 @@ def lm_iteration(value_grad, lower, upper, cfg: LMConfig, linear_solve,
     )
 
 
+def lm_iteration(value_grad, lower, upper, cfg: LMConfig, linear_solve,
+                 jac_scale, st: "_LMState"):
+    """ONE per-lane LM trust-region iteration — propose, evaluate, commit:
+    the exact body of lm_solve's while-loop, factored out so the compacted
+    batched solver (solver/batched.py) can run the IDENTICAL per-lane math
+    under an explicit batch axis. A lane with st.done stays frozen
+    (bit-identical carry), which is what makes gather/compact/scatter safe.
+
+    Returns (new_state, _IterAux); new_state.trace passes through unchanged
+    (lm_solve layers the debug trace on top)."""
+    u_new, delta, model_change = propose(
+        cfg, st.u, st.g, st.jtj, st.radius, lower, upper, linear_solve, jac_scale
+    )
+    new_cost, g_new, jtj_new = value_grad(u_new)
+    return commit(cfg, st, u_new, delta, model_change, new_cost, g_new, jtj_new)
+
+
 def make_value_grad(residual_fn: Callable, d: int):
     """value_grad(u) -> (cost, g = J^T r, JtJ = J^T J) via jax.linearize:
     one primal pass + one d-wide linear tangent pass, reduced immediately so
     the full (R, d) Jacobian is never carried in the solver loop. This is
     the REFERENCE implementation; ops/fused_iter.py provides a semantically
-    identical fused path for batched TPU execution."""
+    identical analytic path for batched GPU execution."""
 
     def value_grad(u):
         y, f_lin = jax.linearize(residual_fn, u)
         j_rows = jax.vmap(f_lin)(jnp.eye(d, dtype=u.dtype))  # (d, R)
         cost = 0.5 * jnp.sum(y * y)
-        # Raised precision on the normal-equation contractions: at DEFAULT,
-        # TPU truncates these f32 dots to bf16, so the trust-region system
-        # would be formed at ~3 decimal digits ON TPU while CPU (where every
-        # parity suite runs) forms it in exact f32 — a silent cross-backend
-        # semantic divergence. At the benchmark D=6, HIGHEST also measured
-        # FASTER end-to-end (+5% at B=1024 on v5e, 94.0k vs 89.5k solves/s):
-        # it removes the f32->bf16 convert+relayout copy the MXU path inserts
-        # per LM iteration, which costs more than the (D, R) x (R, D)
-        # contraction itself. At D=12 (H=36 stress config) the 6-pass
-        # emulation outweighs the saved copy (54.8k vs 59.6k), so wide
-        # problems use HIGH (bf16_3x, ~f32 fidelity, 58.0k). The rho
-        # contractions in the loop body carry the same raised precision; the
-        # damped-solve internals (Pallas lane Cholesky) are explicit f32
-        # lane arithmetic, so no bf16 truncation hides there either.
-        # SOCIAL_MPC_NE_PRECISION=highest|high overrides the width-based
-        # choice — the stress36 parity-attribution arm (tools/parity_on_chip
-        # --ne-precision) uses it to isolate the D=12 HIGH (bf16_3x) normal
-        # equations as a mechanism. Read at trace time.
-        import os
-
-        override = os.environ.get("SOCIAL_MPC_NE_PRECISION")
-        if override == "highest":
-            hi = jax.lax.Precision.HIGHEST
-        elif override == "high":
-            hi = jax.lax.Precision.HIGH
-        else:
-            hi = jax.lax.Precision.HIGHEST if d <= 8 else jax.lax.Precision.HIGH
+        # HIGHEST on the normal-equation contractions at every width: at
+        # DEFAULT an f32 matmul may run in TF32 on the GPU (~3 decimal
+        # digits), which would form the trust-region system far less
+        # precisely than the CPU parity suites do.
+        hi = jax.lax.Precision.HIGHEST
         g = jnp.matmul(j_rows, y, precision=hi)
         jtj = jnp.matmul(j_rows, j_rows.T, precision=hi)
         return cost, g, jtj
@@ -337,8 +293,8 @@ def lm_solve(
     No max_solver_time analogue: Ceres' wall-clock cap
     (max_solver_time_in_seconds = max_time, optimizer.cpp:131) is a
     deliberate non-port — at the benchmark settings it could only bind after
-    1.5 s while 40 iterations of this solver cost ~0.5 ms, and a traced
-    while_loop cannot read a wall clock. max_num_iterations is the only
+    1.5 s, far beyond a 50 ms control tick, and a traced while_loop cannot
+    read a wall clock. max_num_iterations is the only
     binding cap, exactly as in the reference's benchmark runs.
     """
     dtype = u0.dtype
@@ -356,25 +312,9 @@ def lm_solve(
         else None
     )
 
-    # Fused iteration ops (solver/pallas_iter.py) on the default non-debug
-    # path: per-lane semantics identical; batched f32 TPU execution collapses
-    # the trust-region bookkeeping + damped Cholesky into two Pallas kernels.
-    ops = None
-    if (
-        trace_len == 0
-        and linear_solve is default_linear_solve
-        and not cfg.jacobi_scaling
-    ):
-        from nav2_social_mpc_controller_tpu.solver.pallas_iter import (
-            make_commit_op,
-            make_propose_op,
-        )
-
-        ops = (make_propose_op(cfg), make_commit_op(cfg))
-
     def body(st: _LMState) -> _LMState:
         st_new, aux = lm_iteration(
-            value_grad, lower, upper, cfg, linear_solve, jac_scale, st, ops=ops
+            value_grad, lower, upper, cfg, linear_solve, jac_scale, st
         )
 
         trace = st.trace

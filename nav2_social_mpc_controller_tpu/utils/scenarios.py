@@ -73,8 +73,7 @@ def make_costmap(h: int, w: int, resolution=0.05, origin=(-1.0, -3.0), obstacles
     Values are rounded to INTEGERS: nav2's Costmap2D stores unsigned char
     cost (what the reference interpolates, ceres::Grid2D<u_char>,
     optimizer.cpp:167-170), so integer-valued grids are the faithful
-    domain — and what the packed bicubic kernel's 'split3' exact-bf16 dot
-    assumes (core/validate.check_costmap_bf16_exact)."""
+    domain."""
     data = np.zeros((h, w), dtype)
     yy, xx = np.mgrid[0:h, 0:w]
     for (ox_w, oy_w, radius_m) in obstacles:

@@ -2,7 +2,7 @@
 
 Ceres differentiates every critic with forward-mode jets
 (ceres::DynamicAutoDiffCostFunction — e.g. the templated operator() of
-/root/reference/include/nav2_social_mpc_controller/critics/distance_cost_function.hpp:96-132
+the reference's include/nav2_social_mpc_controller/critics/distance_cost_function.hpp:96-132
 instantiated at ceres::Jet): each scalar carries its value plus exact
 partial derivatives along the decision-variable basis. The oracle's
 original central-difference probe (eps = 1e-7) reproduced those Jacobians
@@ -10,7 +10,7 @@ only to ~1e-7 relative — enough to converge to the same optimum, but the FD
 noise became the measurement floor of the parity instrument itself
 (VERDICT r4 missing-item 2: a 2.5e-4 outlier in the jacobi-scaling study
 was attributed to probe noise rather than semantics). This module is the
-NumPy-f64 port of the dual-number pattern already used on the TPU side
+NumPy-f64 port of the dual-number pattern already used on the JAX side
 (nav2_social_mpc_controller_tpu/ops/dual4.py), with a D-wide tangent basis
 matching the oracle's decision vector — the oracle residual math evaluates
 UNCHANGED over either plain floats or jets, so the Jacobian now has the

@@ -1,7 +1,7 @@
 """CPU oracle: a deliberately naive, loop-based, float64 NumPy
 reimplementation of the exact reference semantics
 (PIC4SeR/nav2_social_mpc_controller), used ONLY to generate golden values for
-parity tests of the TPU framework. It shares no code with the JAX
+parity tests of the JAX framework. It shares no code with the JAX
 implementation: rollouts are re-integrated per residual exactly like
 computeUpdatedStateRedux (update_state.hpp:38-63), Jacobians are exact
 forward-mode dual numbers with Ceres-jet semantics (parity/jets.py — the

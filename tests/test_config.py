@@ -106,7 +106,7 @@ def test_loads_actual_reference_yaml_verbatim():
         "/root/reference/params/soc_work_obst_parameters_in_benchmark.yaml"
     )
     bench = benchmark_social_config()
-    # The reference YAML has no TPU-only performance knobs; normalize them
+    # The reference YAML has no performance-only knobs; normalize them
     # before comparing the reference-visible parameter surface.
     assert cfg.optimizer == dataclasses.replace(bench.optimizer, obstacle_window_cells=0)
     assert cfg.trajectorizer == bench.trajectorizer

@@ -112,7 +112,7 @@ def test_esdf_gather_matches_reference_arithmetic():
 
 
 def test_matmul_formulation_matches_gather_stencil():
-    """The MXU one-hot stencil formulation must agree with the classic
+    """The one-hot stencil-matmul formulation must agree with the classic
     16-point gather stencil (values, point-Jacobians, and grid cotangents)
     everywhere including far out-of-range queries."""
     import jax

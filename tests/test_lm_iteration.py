@@ -1,13 +1,13 @@
-"""The fused propose/commit LM-iteration ops (solver/pallas_iter.py):
-kernel-vs-reference equivalence in interpret mode, dispatch behavior, and
-end-to-end solver equality with the ops plumbed through lm_solve."""
+"""One LM iteration (solver/lm.py): the batched propose/commit halves
+against per-lane NumPy references, and end-to-end solver equality between
+the default and the debug-trace paths."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from nav2_social_mpc_controller_tpu.solver import lm
 from nav2_social_mpc_controller_tpu.solver.lm import LMConfig, lm_solve
-from nav2_social_mpc_controller_tpu.solver import pallas_iter as pi
 
 
 def _random_state(rng, b, d, with_done=True):
@@ -23,67 +23,75 @@ def _random_state(rng, b, d, with_done=True):
     return u, g, jtj.astype(np.float32), radius.astype(np.float32), lower, upper, done
 
 
-def test_propose_kernel_matches_reference():
+def _propose_numpy(cfg, u, g, jtj, radius, lower, upper):
+    """Per-lane float64 reference of lm.propose."""
+    u, g, jtj = (np.asarray(x, np.float64) for x in (u, g, jtj))
+    diag = np.clip(np.diagonal(jtj), cfg.min_diagonal, cfg.max_diagonal)
+    delta = np.linalg.solve(jtj + np.diag(diag / float(radius)), -g)
+    u_new = np.clip(u + delta, lower, upper)
+    delta = u_new - u
+    mc = -delta @ g - 0.5 * delta @ jtj @ delta
+    return u_new, delta, mc
+
+
+def test_batched_propose_matches_per_lane_reference():
     cfg = LMConfig()
     rng = np.random.default_rng(0)
     for b, d in [(5, 6), (130, 6), (7, 12), (64, 2)]:
         u, g, jtj, radius, lower, upper, _ = _random_state(rng, b, d)
-        got = pi.propose_batched_pallas(
-            cfg, *map(jnp.asarray, (u, g, jtj, radius, lower, upper)), interpret=True
-        )
-        ref = jax.vmap(lambda *a: pi.propose_ref(cfg, *a))(
+        got = jax.vmap(lambda *a: lm.propose(cfg, *a))(
             *map(jnp.asarray, (u, g, jtj, radius, lower, upper))
         )
-        # f32 tolerance is linear-solver-grade: the kernel's unrolled
-        # Cholesky and LAPACK's cho_solve accumulate differently (the
-        # production batched path already ran the same unrolled kernel via
-        # solver/pallas_solve.py, so this is not a new divergence).
-        for gk, rk, name in zip(got, ref, ("u_new", "delta", "mc")):
-            np.testing.assert_allclose(
-                np.asarray(gk), np.asarray(rk), rtol=2e-3, atol=5e-5, err_msg=name
-            )
+        for i in range(b):
+            ref = _propose_numpy(cfg, u[i], g[i], jtj[i], radius[i], lower[i], upper[i])
+            # f32 Cholesky vs f64 LAPACK: linear-solver-grade tolerance.
+            for gk, rk, name in zip(got, ref, ("u_new", "delta", "mc")):
+                np.testing.assert_allclose(
+                    np.asarray(gk[i]), rk, rtol=2e-3, atol=5e-5, err_msg=name
+                )
 
 
-def test_commit_kernel_matches_reference():
+def test_batched_commit_matches_per_lane():
     cfg = LMConfig(max_iterations=40, fn_tol=1e-5, gradient_tol=1e-8, param_tol=1e-9)
     rng = np.random.default_rng(1)
     for b, d in [(9, 6), (130, 6), (6, 12)]:
         u, g, jtj, radius, lower, upper, done = _random_state(rng, b, d)
-        u_new, delta, mc = pi.propose_batched_pallas(
-            cfg, *map(jnp.asarray, (u, g, jtj, radius, lower, upper)), interpret=True
+        u_new, delta, mc = jax.vmap(lambda *a: lm.propose(cfg, *a))(
+            *map(jnp.asarray, (u, g, jtj, radius, lower, upper))
         )
         # Trial results spanning accept, reject, and invalid-step lanes:
         cost = rng.uniform(1.0, 100.0, b).astype(np.float32)
         new_cost = cost * rng.uniform(0.2, 1.5, b).astype(np.float32)
-        new_cost[0] = np.inf if b > 0 else new_cost[0]  # numeric-failure lane
-        g_new = g * 0.5
-        jtj_new = jtj * 0.9
-        decrease = np.full(b, 2.0, np.float32)
-        iters = rng.integers(0, 40, b).astype(np.int32)
-        term = np.zeros(b, np.int32)
-        failed = np.zeros(b, bool)
-        args = (
-            u, cost, g, jtj, radius, decrease, iters, done, term, failed,
-            np.asarray(u_new), np.asarray(delta), np.asarray(mc), new_cost,
-            g_new, jtj_new,
+        new_cost[0] = np.inf  # invalid-step lane
+        st = lm._LMState(
+            u=jnp.asarray(u), cost=jnp.asarray(cost), g=jnp.asarray(g),
+            jtj=jnp.asarray(jtj), radius=jnp.asarray(radius),
+            decrease_factor=jnp.full((b,), 2.0, jnp.float32),
+            iters=jnp.asarray(rng.integers(0, 40, b).astype(np.int32)),
+            done=jnp.asarray(done), term=jnp.zeros((b,), jnp.int32),
+            failed=jnp.zeros((b,), bool), trace=None,
         )
-        got = pi.commit_batched_pallas(cfg, *map(jnp.asarray, args), interpret=True)
-        ref = jax.vmap(lambda *a: pi.commit_ref(cfg, *a))(*map(jnp.asarray, args))
-        names = ("u", "cost", "g", "jtj", "radius", "decrease", "iters", "done",
-                 "term", "failed")
-        for gk, rk, name in zip(got, ref, names):
-            if np.asarray(rk).dtype == bool or np.asarray(rk).dtype == np.int32:
-                np.testing.assert_array_equal(np.asarray(gk), np.asarray(rk), err_msg=name)
-            else:
-                np.testing.assert_allclose(
-                    np.asarray(gk), np.asarray(rk), rtol=2e-6, atol=1e-6, err_msg=name
-                )
+        trial = (u_new, delta, mc, jnp.asarray(new_cost), jnp.asarray(g * 0.5),
+                 jnp.asarray(jtj * 0.9))
+        got, _ = jax.vmap(lambda s, *t: lm.commit(cfg, s, *t))(st, *trial)
+        for i in range(b):
+            lane = jax.tree.map(lambda x: x[i], st)
+            ref, _ = lm.commit(cfg, lane, *(t[i] for t in trial))
+            for name in ("u", "cost", "g", "jtj", "radius", "decrease_factor",
+                         "iters", "done", "term", "failed"):
+                gk = np.asarray(getattr(got, name)[i])
+                rk = np.asarray(getattr(ref, name))
+                if rk.dtype in (bool, np.int32):
+                    np.testing.assert_array_equal(gk, rk, err_msg=name)
+                else:
+                    np.testing.assert_allclose(gk, rk, rtol=2e-6, atol=1e-6, err_msg=name)
+        # The infinite trial cost is rejected, never accepted.
+        assert float(got.cost[0]) == float(cost[0])
 
 
 def test_lm_solve_with_ops_matches_without():
-    """On CPU the ops fall back to the reference formulations, so lm_solve
-    results must be identical whether the gate engages (trace_len=0,
-    default solver) or not (debug trace path)."""
+    """lm_solve results must be identical with and without the debug trace
+    layered on the same iteration."""
     cfg = LMConfig(max_iterations=30, fn_tol=1e-6, gradient_tol=1e-9, param_tol=1e-10)
 
     def residual_fn(u):
@@ -106,8 +114,8 @@ def test_lm_solve_with_ops_matches_without():
 
 
 def test_batched_lm_solve_with_ops_matches_per_lane():
-    """vmapped lm_solve (ops path under the CPU fallback rule) equals
-    per-lane solves — frozen-lane semantics preserved."""
+    """vmapped lm_solve equals per-lane solves — frozen-lane semantics
+    preserved."""
     cfg = LMConfig(max_iterations=25)
 
     def make_rfn(c):

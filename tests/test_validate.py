@@ -191,25 +191,24 @@ def test_window_validator_cache_holds_references():
 
 
 def test_fused_dispatch_respects_latent_weights():
-    """ADVICE r4 (medium): the custom_vmap rule must refuse the fused kernel
-    for configs with latent-critic weights (AngleCost/CurvatureCost are not
-    implemented in the kernel), independent of who built the op — previously
-    only solve_prepared guarded this, so make_step_batch_compacted could
-    dispatch the kernel on such a config."""
+    """The custom_vmap rule must refuse the analytic
+    path for configs with latent-critic weights (AngleCost/CurvatureCost
+    are not implemented in it), independent of who built the op —
+    previously only solve_prepared guarded this, so
+    make_step_batch_compacted could dispatch it on such a config."""
     import dataclasses as dc
 
     from nav2_social_mpc_controller_tpu.ops.fused_iter import _fused_dispatch_ok
 
     cfg = benchmark_social_config()
     u = jnp.zeros((4, 6), jnp.float32)
-    assert _fused_dispatch_ok(cfg, u, backend="tpu")
-    assert not _fused_dispatch_ok(cfg, u, backend="cpu")
-    assert not _fused_dispatch_ok(cfg, jnp.zeros((6,), jnp.float32), backend="tpu")
-    assert not _fused_dispatch_ok(cfg, u.astype(jnp.float64), backend="tpu")
+    assert _fused_dispatch_ok(cfg, u)
+    assert not _fused_dispatch_ok(cfg, jnp.zeros((6,), jnp.float32))
+    assert not _fused_dispatch_ok(cfg, u.astype(jnp.float64))
 
     w_lat = dc.replace(cfg.optimizer.weights, pure_angle_weight=1.0)
     cfg_lat = dc.replace(cfg, optimizer=dc.replace(cfg.optimizer, weights=w_lat))
-    assert not _fused_dispatch_ok(cfg_lat, u, backend="tpu")
+    assert not _fused_dispatch_ok(cfg_lat, u)
     w_cur = dc.replace(cfg.optimizer.weights, curvature_weight=1.0)
     cfg_cur = dc.replace(cfg, optimizer=dc.replace(cfg.optimizer, weights=w_cur))
-    assert not _fused_dispatch_ok(cfg_cur, u, backend="tpu")
+    assert not _fused_dispatch_ok(cfg_cur, u)

@@ -1,5 +1,5 @@
 """OptimizerConfig.warm_start_mode="previous_solution" (framework extension;
-see docs/performance.md warm-start economics): on warm ticks the solver must
+see tools/warm_start_study.py): on warm ticks the solver must
 start from the previous tick's own block optima and converge in fewer LM
 iterations than the reference-semantics row-blend start, without degrading
 solution usability."""
@@ -48,7 +48,8 @@ def test_previous_solution_mode_cuts_warm_iterations():
     # and must burn IDENTICAL iterations.
     np.testing.assert_array_equal(it_ref[0], it_prev[0])
     # Warm ticks: restarting from the previous optimum must cut the mean
-    # iteration count substantially (measured ~34 -> ~5 on TPU/CPU alike;
+    # iteration count substantially (measured ~34 -> ~5 on CPU; iteration
+    # counts do not depend on the platform;
     # assert a conservative margin).
     assert it_prev[1:].mean() < 0.6 * it_ref[1:].mean(), (
         it_prev[1:].mean(), it_ref[1:].mean())
@@ -57,7 +58,7 @@ def test_previous_solution_mode_cuts_warm_iterations():
     # reference's 40-iteration cap binds before convergence on ~half the
     # lanes, so a different (better-converged) start can land in a different
     # minimum. That deviation is the documented cost of the opt-in mode
-    # (docs/performance.md, warm-start economics); parity tests always run
+    # (tools/warm_start_study.py); parity tests always run
     # in the default "reference" mode.
     o = benchmark_social_config().optimizer
     assert np.isfinite(cmd_prev).all()

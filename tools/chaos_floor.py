@@ -36,7 +36,7 @@ there) was asserted, not measured. This tool measures it:
 Runs entirely on host (CPU backend, oracle in NumPy f64 with exact jet
 Jacobians). Usage:
 
-  PYTHONPATH=/root/repo:$PYTHONPATH python tools/chaos_floor.py \
+  PYTHONPATH=.:$PYTHONPATH python tools/chaos_floor.py \
       --seeds 10 --ticks 3 --json CHAOS_FLOOR_r05.json
 """
 

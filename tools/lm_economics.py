@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """LM iteration economics (VERDICT r1 item 7): compare per-problem iteration
-counts of the batched TPU solver vs the Ceres-semantics oracle on identical
+counts of the batched solver vs the Ceres-semantics oracle on identical
 problems, and quantify the all-lanes-until-slowest tax of the batched
 while_loop (time per tick scales with the batch MAX, not the mean).
 
 Run on CPU (float64):
-  PYTHONPATH=/root/repo:$PYTHONPATH python tools/lm_economics.py --seeds 24
+  PYTHONPATH=.:$PYTHONPATH python tools/lm_economics.py --seeds 24
 """
 
 import argparse

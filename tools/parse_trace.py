@@ -55,12 +55,12 @@ def main():
         data = json.load(f)
 
     events = data["traceEvents"]
-    # Identify device pids (process names containing TPU/device)
+    # Identify device pids (process names naming a device or XLA)
     pid_names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pid_names[e["pid"]] = e["args"].get("name", "")
-    device_pids = {p for p, n in pid_names.items() if re.search(r"TPU|/device|XLA", n, re.I)}
+    device_pids = {p for p, n in pid_names.items() if re.search(r"GPU|/device|XLA", n, re.I)}
     if not device_pids:
         device_pids = set(pid_names)  # fall back to everything
 

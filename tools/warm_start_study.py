@@ -102,7 +102,7 @@ def main():
     ap.add_argument("--protocols", default="bench,closedloop")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (iteration counts are "
-                    "platform-independent; only wall-clock needs TPU)")
+                    "platform-independent; only wall-clock needs the GPU)")
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
